@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 
 import tpu_rt
+from tpu_rt.scene import SCENE_DIR
 
-SCENES = "/root/reference/scenes"
+SCENES = SCENE_DIR
 
 
 def _sdf_swept_sphere(p, r0, r1, ns=1501):

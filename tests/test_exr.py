@@ -1,9 +1,12 @@
 """EXR reader tests incl. the PIZ (wavelet+Huffman) decoder on the
 reference's textures (envmap.exr is the polarizers.xml emitter)."""
 
+import os
+
 import numpy as np
 import pytest
 
+from tpu_rt.scene import SCENE_DIR
 from tpu_rt.scene.exr import load_exr
 
 
@@ -16,7 +19,7 @@ from tpu_rt.scene.exr import load_exr
     ],
 )
 def test_piz_textures_decode(name, shape):
-    img = load_exr(f"/root/reference/scenes/textures/{name}")
+    img = load_exr(os.path.join(SCENE_DIR, "textures", name))
     assert img.shape == shape
     assert np.isfinite(img).all()
     assert (img >= 0).all()

@@ -309,63 +309,6 @@ def test_sharded_acquisition_matches_single_chip_stats():
     assert abs(g[0, 0]) > 0  # impedance gradient is live
 
 
-def test_sharded_pallas_acquisition_matches_single_chip():
-    """Sharded acquisition through the ultrasound MEGAKERNEL: psum-average
-    over the 8-device mesh equals the average of the 8 per-device
-    single-chip kernel runs at the same seeds (same kernel, same RNG
-    streams; psum only reorders f32 adds)."""
-    import numpy as np
-
-    from tpu_rt.ops.pallas_us import simulate_acquisition_pallas
-    from tpu_rt.parallel.ultrasound import (
-        simulate_acquisition_pallas_sharded,
-    )
-
-    d = {
-        "type": "scene",
-        "integrator": {
-            "type": "ultrasound_integrator",
-            "max_depth": 2, "n_elements": 16, "time_samples": 1500,
-            "pitch": 0.0005, "angles": np.asarray([0.0], np.float32),
-        },
-        "sensor": {
-            "type": "ultrasound_sensor", "num_elements_lateral": 16,
-            "pitch": 0.0005, "radius": float("inf"),
-            "to_world": tpu_rt.ScalarTransform4f(),
-        },
-        "plate": {
-            "type": "rectangle",
-            "to_world": tpu_rt.ScalarTransform4f().translate([0, 0, 0.02])
-            @ tpu_rt.ScalarTransform4f().rotate([0, 1, 0], 180)
-            @ tpu_rt.ScalarTransform4f().scale([0.04, 0.04, 1]),
-            "bsdf": {"type": "ultrasound_bsdf", "impedance": 7.8,
-                     "roughness": 0.4},
-        },
-    }
-    scene = tpu_rt.load_dict(d)
-    mesh = default_mesh()
-    n_dev = mesh.devices.size
-    assert n_dev == 8
-
-    ch_sh, tx_sh = simulate_acquisition_pallas_sharded(
-        scene, seed=5, rays_per_pair=8, mesh=mesh, interpret=True
-    )
-
-    acc = None
-    for i in range(n_dev):
-        ch_i, tx_i = simulate_acquisition_pallas(
-            scene, seed=5 + i * 7919, rays_per_pair=1, interpret=True
-        )
-        acc = ch_i if acc is None else acc + ch_i
-    ch_ref = acc / n_dev
-    ch_sh = np.asarray(ch_sh)
-    assert np.abs(ch_sh).sum() > 0  # plate echo present
-    np.testing.assert_allclose(ch_sh, np.asarray(ch_ref),
-                               rtol=1e-5, atol=1e-8)
-    np.testing.assert_allclose(np.asarray(tx_sh), np.asarray(tx_i),
-                               atol=1e-12)
-
-
 @pytest.mark.parametrize("method", ["matmul", "gather"])
 def test_sharded_das_matches_single_chip(method):
     """das_beamform_sharded (lateral pixel tiles over the 8-device mesh,

@@ -1,7 +1,7 @@
 """Projective (visibility-discontinuity) gradients for curve occluders.
 
 Validates the soft-curve-shadow estimator (tpu_rt/integrator/projective.py
-— the TPU-native equivalent of Mitsuba's direct_projective visibility
+— the JAX equivalent of Mitsuba's direct_projective visibility
 derivatives, /root/reference/scenes/shadow_art.xml:10): jax.grad of the
 soft render is compared against central finite differences of the HARD
 Monte-Carlo render on an occluder translation and radius change.

@@ -50,6 +50,30 @@ def test_furnace_convex_diffuse():
     assert abs(corner - 1.0) < 0.03, f"background {corner} != env radiance"
 
 
+def test_furnace_constant_env_central_rays():
+    """White furnace through path_trace directly: rays aimed at the centre
+    of a convex diffuse sphere (albedo 0.7) in a constant unit environment
+    average to exactly the albedo (every bounce escapes to the env), and
+    rays that miss see exactly the env radiance."""
+    albedo = 0.7
+    scene = tpu_rt.load_dict({
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 8},
+        "sph": {"type": "sphere",
+                "bsdf": {"type": "diffuse", "reflectance": np.full(3, albedo)}},
+        "env": {"type": "constant", "radiance": np.ones(3)},
+    })
+    n = 4096
+    o = jnp.tile(jnp.asarray([[0.0, 0.0, -4.0]]), (n, 1))
+    d_hit = jnp.tile(jnp.asarray([[0.0, 0.0, 1.0]]), (n, 1))
+    L = np.mean([np.asarray(path_trace(scene, o, d_hit, jax.random.PRNGKey(s))[0])
+                 for s in range(4)], axis=0)
+    assert np.isfinite(L).all()
+    assert abs(L.mean() - albedo) < 0.01, L.mean()
+    L_miss, _ = path_trace(scene, o, -d_hit, jax.random.PRNGKey(0))
+    np.testing.assert_allclose(np.asarray(L_miss), 1.0, rtol=1e-6)
+
+
 def test_cbox_renders_and_orientation(ref_scenes):
     scene = tpu_rt.load_file(os.path.join(ref_scenes, "cbox.xml"), spp=8, res=48)
     img = np.asarray(render(scene, spp=8))
@@ -117,6 +141,83 @@ def test_mesh_bvh_vs_bruteforce(ref_scenes):
         rtol=1e-5,
     )
     assert (np.asarray(hit_bvh.prim) >= 0).sum() > 50
+
+
+def _soup_geometry(p0, e1, e2):
+    """Triangle-only Geometry (with its BVH) for a raw triangle soup."""
+    from tpu_rt.geometry.bvh import build_bvh
+    from tpu_rt.scene.types import Geometry
+
+    T = p0.shape[0]
+    v = np.stack([p0, p0 + e1, p0 + e2], 1)
+    bvh = build_bvh(v.min(1) - 1e-6, v.max(1) + 1e-6)
+    z3 = jnp.zeros((T, 3), jnp.float32)
+    z2 = jnp.zeros((T, 2), jnp.float32)
+    return Geometry(
+        tri_p0=jnp.asarray(p0), tri_e1=jnp.asarray(e1), tri_e2=jnp.asarray(e2),
+        tri_n0=z3, tri_n1=z3, tri_n2=z3, tri_uv0=z2, tri_uv1=z2, tri_uv2=z2,
+        tri_shape=jnp.zeros((T,), jnp.int32),
+        an_type=jnp.zeros((0,), jnp.int32),
+        an_to_world=jnp.zeros((0, 4, 4), jnp.float32),
+        an_to_object=jnp.zeros((0, 4, 4), jnp.float32),
+        an_shape=jnp.zeros((0,), jnp.int32),
+        bvh_min=jnp.asarray(bvh["node_min"]), bvh_max=jnp.asarray(bvh["node_max"]),
+        bvh_a=jnp.asarray(bvh["a"]), bvh_b=jnp.asarray(bvh["b"]),
+        bvh_count=jnp.asarray(bvh["count"]),
+        prim_order=jnp.asarray(bvh["prim_order"]),
+        n_tris=T, n_analytic=0,
+    )
+
+
+@pytest.mark.parametrize("route,T,N", [
+    ("bruteforce", 150, 1024),
+    ("chunked", 700, 1024),
+    ("bvh", 9000, 256),
+])
+def test_random_soup_matches_numpy(route, T, N):
+    """Incoherent random triangle soup + random rays through the public
+    ray_intersect_hit vs an independent NumPy Moller-Trumbore closest hit;
+    T picks the route (brute force / chunked scan / BVH traversal)."""
+    assert {
+        "bruteforce": T <= trace.BRUTE_FORCE_MAX_PRIMS,
+        "chunked": trace.BRUTE_FORCE_MAX_PRIMS < T <= trace.CHUNKED_MAX_PRIMS,
+        "bvh": T > trace.CHUNKED_MAX_PRIMS,
+    }[route]
+    rng = np.random.default_rng(11)
+    scale = 0.25 * (300.0 / T) ** 0.5  # keep the soup's depth complexity modest
+    p0 = rng.uniform(-1, 1, (T, 3)).astype(np.float32)
+    e1 = rng.normal(0, scale, (T, 3)).astype(np.float32)
+    e2 = rng.normal(0, scale, (T, 3)).astype(np.float32)
+    o = rng.uniform(-2, 2, (N, 3)).astype(np.float32)
+    d = rng.normal(0, 1, (N, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+    hit = trace.ray_intersect_hit(_soup_geometry(p0, e1, e2),
+                                  jnp.asarray(o), jnp.asarray(d), tmin=1e-4)
+    t, prim = np.asarray(hit.t), np.asarray(hit.prim)
+
+    pv = np.cross(d[:, None, :], e2[None, :, :])          # [N, T, 3]
+    det = np.einsum("tk,ntk->nt", e1, pv)
+    det = np.where(np.abs(det) < 1e-12, np.where(det < 0, -1e-12, 1e-12), det)
+    tv = o[:, None, :] - p0[None, :, :]
+    uu = np.einsum("ntk,ntk->nt", tv, pv) / det
+    qv = np.cross(tv, e1[None, :, :])
+    vv = np.einsum("nk,ntk->nt", d, qv) / det
+    tt = np.einsum("tk,ntk->nt", e2, qv) / det
+    ok = (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & (tt > 1e-4)
+    tt = np.where(ok, tt, np.inf)
+    ref_prim = tt.argmin(1)
+    ref_t = tt[np.arange(N), ref_prim]
+    ref_hit = np.isfinite(ref_t)
+    assert ref_hit.mean() > 0.15
+
+    np.testing.assert_array_equal(prim >= 0, ref_hit)
+    np.testing.assert_allclose(t[ref_hit], ref_t[ref_hit], rtol=2e-5)
+    # same winning triangle wherever the closest hit is unambiguous
+    t2 = np.partition(tt, 1, axis=1)[:, 1]
+    with np.errstate(invalid="ignore"):
+        clear = ref_hit & ((t2 - ref_t) > 1e-3)
+    np.testing.assert_array_equal(prim[clear], ref_prim[clear])
 
 
 def test_analytic_sphere_hit_positions():
@@ -235,8 +336,8 @@ def test_camera_clip_propagation(ref_scenes):
 def test_near_far_clip_are_ray_extents():
     """Mitsuba ray.mint/maxt semantics: a blocker nearer than near_clip is
     skipped (the emitter behind it shows); geometry beyond far_clip is
-    missed.  Runs both the public render path (Pallas megakernel in
-    interpret mode under the CPU conftest) and the XLA wavefront tracer."""
+    missed.  Runs both the public render path and the XLA wavefront
+    tracer directly."""
     mid = np.asarray(tpu_rt.render(_clip_scene(), spp=4))[6:10, 6:10]
     assert mid.mean() < 0.05  # black blocker fills the view
 

@@ -184,7 +184,7 @@ def test_mesh_loaders_roundtrip(ref_scenes):
     assert obj["faces"].shape == (2, 3)
     assert obj["uvs"] is not None
 
-    ring = load_obj("/root/reference/TestRing/TestRing.obj")
+    ring = load_obj(os.path.join(ref_scenes, "..", "TestRing", "TestRing.obj"))
     assert ring["vertices"].shape[0] >= 500 and ring["faces"].shape[0] >= 1000
 
     teapot = load_ply(os.path.join(ref_scenes, "meshes", "teapot.ply"))

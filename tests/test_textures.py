@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 
 import tpu_rt
+from tpu_rt.scene import SCENE_DIR
 from tpu_rt.scene.png import read_png, srgb_to_linear
 
-TEXDIR = "/root/reference/scenes/textures"
+TEXDIR = os.path.join(SCENE_DIR, "textures")
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +212,7 @@ def test_textured_reflectance_ratio_is_exact():
     # Reconstruct the expected texture values by intersecting the same
     # camera rays with the z=0 plane analytically (replicating the
     # render() raygen: _make_keys_seeds -> split -> jitter).
-    from tpu_rt.ops.pallas_path import _make_keys_seeds
+    from tpu_rt.integrator.path import _make_keys_seeds
     from tpu_rt.sensor import camera as cam
     import jax
 
@@ -235,16 +236,6 @@ def test_textured_reflectance_ratio_is_exact():
 
     err = np.abs(ratio - expect)[lit]
     assert err.max() < 1e-3, err.max()
-
-
-@pytest.mark.quick
-def test_textured_scene_out_of_megakernel_scope():
-    from tpu_rt.ops.pallas_path import bake_scene
-
-    tex_path = os.path.join(TEXDIR, "image_001.png")
-    sc = _texture_scene({"type": "bitmap", "filename": tex_path})
-    assert sc.has_textures
-    assert bake_scene(sc) is None
 
 
 def test_texture_xml_binding(tmp_path):

@@ -222,7 +222,7 @@ def test_sphere_box_scene_acquisition(ref_us_scenes):
 
 
 def test_das_matmul_matches_gather():
-    """The MXU-windowed DAS must reproduce the gather formulation."""
+    """The windowed-GEMM DAS must reproduce the gather formulation."""
     import jax
 
     from tpu_rt.us.beamform import das_beamform, das_beamform_matmul, grid_scan
@@ -398,3 +398,82 @@ def test_das_matmul_window_autosize_under_jit():
     # ~1e-4 of f32/edge-tap noise remains between the two forms; the bug
     # this guards against measures >1e-2 (window floor 128 vs needed 648)
     assert rel < 5e-4, rel
+
+
+def test_das_matmul_window_autosize_inside_pipeline_jit():
+    """us_render's form of the call: the grid is built by grid_scan INSIDE
+    jax.jit and fs / c are concrete jax arrays (scene fields).  The window
+    must still auto-size on the host (a traced grid or a staged 1/c would
+    leave it at the floor and drop taps)."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_rt.us.beamform import das_beamform, das_beamform_matmul, grid_scan
+
+    fs, c = jnp.float32(50e6), jnp.float32(1540.0)
+    A, E, T = 2, 8, 4000
+    rng = np.random.default_rng(4)
+    ch = rng.standard_normal((A, E, T)).astype(np.float32)
+    elem_x = ((np.arange(E, dtype=np.float32) - (E - 1) / 2) * 3e-4)
+    angles = np.asarray([-8.0, 8.0], np.float32)
+    step = 1540.0 / 5e6  # coarse pitch: needed window ~648 >> 128 floor
+
+    def grids():
+        return grid_scan(-0.01, 0.01, 0.002, 0.03, step, step)
+
+    xg, zg = grids()
+    ref = np.asarray(das_beamform(ch, angles, elem_x, 50e6, 1540.0, xg, zg))
+    out = np.asarray(jax.jit(
+        lambda d: das_beamform_matmul(d, angles, elem_x, fs, c, *grids())
+    )(ch))
+    rel = np.sqrt(((out - ref) ** 2).mean()) / np.sqrt((ref ** 2).mean())
+    assert rel < 5e-4, rel
+
+
+def test_us_render_fast_is_the_xla_pipeline():
+    """us_render_fast has one route (the XLA acquisition; no kernel or
+    interpreter switch) and its cached jitted frame equals the eager
+    us_render of the same seed."""
+    import inspect
+
+    import tpu_rt
+    from tpu_rt.us.pipeline import us_render, us_render_fast
+
+    assert "use_pallas" not in inspect.signature(us_render_fast).parameters
+    assert "use_pallas" not in inspect.signature(us_render).parameters
+    scene = tpu_rt.load_dict({
+        "type": "scene",
+        "integrator": {
+            "type": "ultrasound_integrator", "max_depth": 2,
+            "n_elements": 16, "time_samples": 1200, "pitch": 0.0005,
+            "angles": np.asarray([-5.0, 5.0], np.float32),
+        },
+        "sensor": {
+            "type": "ultrasound_sensor", "num_elements_lateral": 16,
+            "pitch": 0.0005, "radius": float("inf"),
+            "to_world": tpu_rt.ScalarTransform4f(),
+        },
+        "plate": {
+            "type": "rectangle",
+            "to_world": tpu_rt.ScalarTransform4f().translate([0, 0, 0.012])
+            @ tpu_rt.ScalarTransform4f().rotate([0, 1, 0], 180)
+            @ tpu_rt.ScalarTransform4f().scale([0.02, 0.02, 1]),
+            "bsdf": {"type": "ultrasound_bsdf", "impedance": 7.8,
+                     "roughness": 0.4},
+        },
+    })
+    kw = dict(rays_per_pair=2, x_bounds=(-0.004, 0.004),
+              z_bounds=(0.008, 0.016))
+    img_f, ch_f, tx_f = us_render_fast(scene, seed=3, **kw)
+    img_e, ch_e, tx_e = us_render(scene, seed=3, **kw)
+    assert np.abs(np.asarray(ch_e)).max() > 0  # the plate echo is recorded
+    np.testing.assert_allclose(np.asarray(ch_f), np.asarray(ch_e),
+                               rtol=1e-4, atol=1e-6 * np.abs(np.asarray(ch_e)).max())
+    np.testing.assert_allclose(np.asarray(tx_f), np.asarray(tx_e), atol=1e-12)
+    np.testing.assert_allclose(np.asarray(img_f), np.asarray(img_e), atol=2e-3)
+    # a second call with the same scene reuses the cached jitted frame
+    from tpu_rt.us import pipeline
+
+    n_cached = len(pipeline._US_RENDER_CACHE)
+    us_render_fast(scene, seed=4, **kw)
+    assert len(pipeline._US_RENDER_CACHE) == n_cached

@@ -1,122 +1,70 @@
-"""End-to-end ultrasound product-path benchmark (VERDICT r4 #8).
+"""End-to-end ultrasound product-path timing on one GPU.
 
-Times the FULL USMain-equivalent pipeline — acquisition megakernel ->
-DAS beamforming -> envelope -> log compression -> B-mode image — on the
-real TPU at the reference's production config
-(/root/reference/USMain.py:26-90: flat 45-degree plate + back wall,
-5 plane-wave angles x 64 elements x 10k time samples, max_depth 10),
-64 rays per tx/rx element pair (the "keep low for debugging" reference
-values are the committed config; rays_per_pair sets the MC sample count
-per acquisition pair like spp does for optical renders).
+Times the full USMain pipeline — acquisition (XLA wavefront tracer) ->
+DAS beamforming -> envelope -> log compression -> B-mode — through
+``us_render_fast`` at the reference's production config
+(tpu_rt/us/scenes.py::usmain_scene: 45-degree plate + back wall, 5
+plane-wave angles x 64 elements x 10k time samples, max_depth 10) with 64
+rays per (angle, element) pair.
 
-Prints one BENCH-style JSON line for PARITY.md.  Env knobs: US_RPP
-(rays per pair, default 64), US_REPS (default 3), US_NO_PALLAS=1.
+Run:  python tools/bench_us_e2e.py   (knobs: US_RPP, US_REPS)
+Prints the card's name and power limit, then one JSON line.
 """
 
 import json
 import os
+import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1.0")
 
 import numpy as np
 
-
-def make_scene():
-    import tpu_rt
-
-    T = tpu_rt.ScalarTransform4f
-    return tpu_rt.load_dict({
-        "type": "scene",
-        "integrator": {
-            "type": "ultrasound_integrator",
-            "max_depth": 10,
-            "sampling_rate": 50e6,
-            "frequency": 5e6,
-            "sound_speed": 1540,
-            "attenuation": 0.2,
-            "wave_cycles": 5,
-            "main_beam_angle": 24,
-            "cutoff_angle": 30,
-            "n_elements": 64,
-            "pitch": 0.00003 * 4,
-            "time_samples": 10000,
-            "angles": np.linspace(-15, 15, 5),
-        },
-        "sensor": {
-            "type": "ultrasound_sensor",
-            "num_elements_lateral": 1280,
-            "elements_width": 0.003,
-            "elements_height": 0.01,
-            "pitch": 0.0003,
-            "radius": float("inf"),
-            "center_frequency": 5e6,
-            "sound_speed": 1540,
-            "directivity": 1.0,
-            "to_world": T().look_at(origin=[0, 0, 0.0], target=[0, 0, 0.03],
-                                    up=[0, 1, 0]),
-            "film": {"type": "hdrfilm", "width": 512, "height": 512,
-                     "pixel_format": "luminance"},
-        },
-        "flat_plate": {
-            "type": "rectangle",
-            "to_world": (T().translate([0, 0, 0.05])
-                         @ T().rotate([0, 1, 0], 45)
-                         @ T().scale([0.17, 0.17, 0.14])),
-            "bsdf": {"type": "ultrasound_bsdf", "impedance": 7.8,
-                     "roughness": 0.7},
-        },
-        "wall_back": {
-            "type": "rectangle",
-            "to_world": (T().translate([0, 0, 1])
-                         @ T().rotate([0, 1, 0], 180)
-                         @ T().scale([0.05, 0.05, 1])),
-            "bsdf": {"type": "ultrasound_bsdf", "impedance": 7.8,
-                     "roughness": 0.7},
-        },
-    })
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
     import jax
 
+    from bench import card_name_and_power_limit
     from tpu_rt.us.pipeline import us_render_fast
+    from tpu_rt.us.scenes import usmain_scene
+    from tpu_rt.utils.compile_cache import enable_compile_cache
 
-    scene = make_scene()
+    enable_compile_cache(min_compile_time_secs=1.0)
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench_us_e2e.py needs a GPU; JAX found {dev.platform}",
+              file=sys.stderr)
+        sys.exit(1)
+    print(card_name_and_power_limit(), flush=True)
+
+    scene = usmain_scene()
     rpp = int(os.environ.get("US_RPP", "64"))
     reps = int(os.environ.get("US_REPS", "3"))
-    use_pallas = os.environ.get("US_NO_PALLAS", "") != "1"
 
     t0 = time.perf_counter()
-    img, buf, tx = us_render_fast(scene, seed=0, rays_per_pair=rpp,
-                                  use_pallas=use_pallas)
+    img, _, _ = us_render_fast(scene, seed=0, rays_per_pair=rpp)
     jax.block_until_ready(img)
-    compile_s = time.perf_counter() - t0
+    first_s = time.perf_counter() - t0
     assert np.isfinite(np.asarray(img)).all()
 
     times = []
     for rep in range(reps):
         t0 = time.perf_counter()
-        img, buf, tx = us_render_fast(scene, seed=rep + 1, rays_per_pair=rpp,
-                                      use_pallas=use_pallas)
+        img, _, _ = us_render_fast(scene, seed=rep + 1, rays_per_pair=rpp)
         jax.block_until_ready(img)
         times.append(time.perf_counter() - t0)
-    times.sort()
-    med = times[len(times) // 2]
+    med = float(np.median(times))
     us = scene.ultrasound
-    n_rays = us.n_angles * us.n_elements * us.n_elements * rpp
-    print(f"US e2e (acq->DAS->B-mode): median {med*1e3:.1f} ms "
-          f"[{times[0]*1e3:.1f}..{times[-1]*1e3:.1f}] n={reps} "
-          f"(first call incl. compile {compile_s:.1f} s; "
-          f"{us.n_angles} angles x {us.n_elements} el x "
-          f"{us.time_samples} samples, rpp {rpp}, pallas {use_pallas}, "
-          f"img {np.asarray(img).shape})", flush=True)
+    paths = us.n_angles * us.n_elements * rpp
     print(json.dumps({
-        "metric": "us_e2e_median_s", "value": round(med, 4), "unit": "s",
-        "config": "USMain 5x64x10000 rpp%d" % rpp,
-        "rays_per_s": round(n_rays / med / 1e6, 1),
-        "unit_rays": "M rays/s", "pallas": use_pallas,
+        "metric": "us_e2e_median_s", "value": med, "unit": "s",
+        "config": f"USMain {us.n_angles}x{us.n_elements}x{us.time_samples} "
+                  f"rpp{rpp}",
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
+        "first_call_s": first_s, "times_s": times,
+        "acoustic_paths_per_s": paths / med,
+        "image_shape": list(np.asarray(img).shape),
     }))
 
 

@@ -1,6 +1,6 @@
-"""tpu_rt — a TPU-native physics-based ray/path tracing framework in JAX/XLA/Pallas.
+"""tpu_rt — a physics-based ray/path tracing framework in JAX/XLA.
 
-Re-implements, TPU-first, the capabilities of the Mitsuba-3-based reference
+Re-implements in JAX the capabilities of the Mitsuba-3-based reference
 `ReaganCardoza/Physics-Based-Ray-Tracing` (see SURVEY.md): an optical wavefront
 path tracer (NEE + MIS + Russian roulette), polarized Stokes/Mueller transport,
 an ultrasound plane-wave acquisition simulator (transducer emitter/sensor

@@ -1,6 +1,6 @@
 """Acoustic (ultrasound) GGX rough reflection/transmission BSDF.
 
-TPU-native rebuild of the reference's UltraBSDF
+JAX rebuild of the reference's UltraBSDF
 (/root/reference/CustomBSDF.py:7-191): impedance-based pressure
 reflection/transmission with GGX microfacet normal sampling.
 
@@ -27,13 +27,12 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-import flax.struct
-
 from tpu_rt.bsdf import microfacet as mf
+from tpu_rt.core import struct
 from tpu_rt.core.math import safe_sqrt
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class AcousticSample:
     wo: jnp.ndarray  # [N, 3] local outgoing direction
     amplitude: jnp.ndarray  # [N] pressure amplitude factor (R or T, / prob)

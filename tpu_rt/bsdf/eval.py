@@ -1,6 +1,6 @@
 """BSDF sampling / evaluation / pdf, SoA-dispatched over a megabatch.
 
-TPU-native equivalents of the Mitsuba BSDF plugins the reference scenes use
+JAX equivalents of the Mitsuba BSDF plugins the reference scenes use
 (diffuse, dielectric, conductor, roughconductor GGX, polarizer — SURVEY.md
 §2b stock-BSDF row).  Instead of per-object virtual dispatch, every ray lane
 carries a bsdf index into the flat (type, params) tables; all implemented
@@ -21,10 +21,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-import flax.struct
-
 from tpu_rt.bsdf import microfacet as mf
-from tpu_rt.core import warps
+from tpu_rt.core import struct, warps
 from tpu_rt.core.math import (
     fresnel_conductor,
     fresnel_dielectric,
@@ -44,7 +42,7 @@ from tpu_rt.scene.types import (
 INV_PI = 1.0 / jnp.pi
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class BSDFSample:
     """SoA equivalent of mi.BSDFSample3f."""
 

@@ -1,6 +1,6 @@
 """GGX (Trowbridge-Reitz) microfacet distribution: VNDF sampling, D, G, pdf.
 
-TPU-native replacement for the reference's hand-rolled GGX
+JAX replacement for the reference's hand-rolled GGX
 (_ggx_sample, Heitz stretched-VNDF, /root/reference/CustomBSDF.py:30-61) and
 the inverse-CDF theta sampling validated by sampling_test.py:18.  Unlike the
 reference's ggx_pdf (which degenerates to 1.0 — SURVEY.md §2d), this pdf is

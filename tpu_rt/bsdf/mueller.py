@@ -1,6 +1,6 @@
 """Mueller-matrix algebra for polarized (Stokes) light transport.
 
-TPU-native rebuild of the capability behind the reference's ``stokes``
+JAX rebuild of the capability behind the reference's ``stokes``
 integrator and ``polarizer`` BSDF scenes
 (/root/reference/scenes/cbox_pol.xml:5-7, polarizers.xml:27-39 —
 SURVEY.md §2b stock-integrator row).

@@ -1,6 +1,6 @@
 """Bitmap texture evaluation (bilinear, repeat wrap).
 
-TPU-native rebuild of the capability the reference's consumed Mitsuba
+JAX rebuild of the capability the reference's consumed Mitsuba
 stack provides via its ``bitmap`` texture plugin (assets shipped at
 /root/reference/scenes/textures/image_00*.png): a BSDF parameter —
 reflectance on diffuse here — sampled per hit from an image by UV.

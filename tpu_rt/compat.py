@@ -14,7 +14,7 @@ user of the reference can port scripts with an import swap
   * ``register_integrator`` etc. — no-op registry shims (plugins are
     resolved by the scene compiler from their type strings)
 
-The TPU implementations are vectorized and jit-compiled; both
+The JAX implementations are vectorized and jit-compiled; both
 ``simulate_acquisition`` variants run the same megabatched program (the
 reference's 'parallel' variant only existed to work around Python-loop
 slowness, SURVEY.md §2c).
@@ -88,7 +88,7 @@ class UltraIntegrator:
         return True  # reference returns True (CustomIntegrator.py:232)
 
     # The reference's threaded variant exists only as a workaround for its
-    # Python-loop slowness; on TPU both names run the same fused program.
+    # Python-loop slowness; here both names run the same fused program.
     simulate_acquisition_parallel = simulate_acquisition
 
 

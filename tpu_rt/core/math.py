@@ -142,12 +142,11 @@ def inverse(m):
 
 # Device-side application ----------------------------------------------------
 #
-# NOTE: geometry transforms must run in full f32.  On TPU, einsum/matmul on
-# f32 inputs defaults to bf16 MXU passes (jax_default_matmul_precision),
-# which quantizes hit points to ~3 decimal digits and causes spurious
-# shadow-ray self-occlusion (observed: floors losing half their direct
-# light).  Explicit multiply-add keeps the math on the VPU in f32 — and is
-# faster than MXU dispatch for 3x3 anyway.
+# NOTE: geometry transforms must run in full f32.  A default-precision f32
+# einsum/matmul may run in reduced precision (TF32 on the GPU's tensor
+# cores keeps ~3 decimal digits), which quantizes hit points and causes
+# spurious shadow-ray self-occlusion (observed: floors losing half their
+# direct light).  Explicit multiply-adds keep the 3x3 math in f32.
 
 def transform_point(m, p):
     """Apply 4x4 ``m`` (..., 4, 4) to points ``p`` (..., 3)."""
@@ -297,11 +296,11 @@ def luminance(rgb):
 def small_table_lookup(table, idx, max_unroll=32):
     """``table[idx]`` as a static select chain when the table is small.
 
-    XLA lowers tiny-table dynamic gathers on TPU pathologically (~0.7 ms
-    for 262k lookups from an (8, 3) table on v5e, measured round 2); a
-    masked select chain is ~100x faster.  Falls back to a real gather for
-    big tables, where gathers win.  Callers must pre-clip ``idx`` into
-    range (out-of-range lanes produce zeros here instead of clamping).
+    A masked select chain fuses into the surrounding elementwise code;
+    big tables fall back to a real gather.  Whether the chain still beats
+    a gather on the GPU is not measured (ROADMAP S3).  Callers must
+    pre-clip ``idx`` into range (out-of-range lanes produce zeros here
+    instead of clamping).
     """
     K = table.shape[0]
     if K == 0 or K > max_unroll:

@@ -1,7 +1,7 @@
 """Warping functions mapping [0,1)^2 samples to distributions on disks,
 hemispheres and spheres, with matching pdfs.
 
-TPU-native equivalents of the mi.warp.* functions the reference consumes
+JAX equivalents of the mi.warp.* functions the reference consumes
 (square_to_uniform_disk_concentric at /root/reference/CustomBSDF.py:48,
 square_to_uniform_hemisphere in the UltraSensor pyc — see SURVEY.md §2b).
 """

@@ -1,6 +1,6 @@
 """Emitter sampling for next-event estimation, plus miss-shader env lookup.
 
-TPU-native equivalents of Mitsuba's area / point / envmap emitters
+JAX equivalents of Mitsuba's area / point / envmap emitters
 (SURVEY.md §2b stock-emitter row).  Light selection is uniform over light
 units (area shapes, point lights, the envmap) like Mitsuba's uniform emitter
 sampling; area emitters then sample a triangle proportional to area within
@@ -11,14 +11,13 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-import flax.struct
-
+from tpu_rt.core import struct
 from tpu_rt.core.math import small_table_lookup, dot, normalize, transform_vector, vec3
 from tpu_rt.core.warps import square_to_uniform_triangle
 from tpu_rt.scene.types import Emitters, Scene
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class DirectSample:
     """A light sample toward a reference point (NEE)."""
 

@@ -1,6 +1,6 @@
 """Host-side BVH construction (numpy, binned SAH).
 
-TPU-native replacement for the Embree/OptiX BVHs the reference consumes via
+JAX replacement for the Embree/OptiX BVHs the reference consumes via
 scene.ray_intersect (/root/reference/CustomIntegrator.py:146,159 — SURVEY.md
 §2b).  The build runs once on host at scene-compile time; the flat node
 arrays live in HBM and are traversed on device (tpu_rt.geometry.trace).

@@ -1,6 +1,6 @@
 """Analytic primitive intersectors, SoA over rays.
 
-TPU-native equivalents of Mitsuba's C++ shape plugins consumed by the
+JAX equivalents of Mitsuba's C++ shape plugins consumed by the
 reference scenes (sphere/rectangle/cone/cylinder/disk — SURVEY.md §2b shapes
 row).  All analytic shapes are canonical in object space:
 

@@ -1,14 +1,14 @@
-"""Device-side scene intersection: brute-force and BVH traversal paths.
+"""Device-side scene intersection: brute-force, chunked and BVH routes.
 
-This is the TPU-native replacement for ``scene.ray_intersect``
+JAX replacement for ``scene.ray_intersect``
 (/root/reference/CustomIntegrator.py:146,159 -> Embree/OptiX; SURVEY.md §2b):
-rays are SoA megabatches, traversal is a ``lax.while_loop`` with a fixed
-short stack per ray (vmapped), and all geometry lives in flat HBM tables.
+rays are SoA megabatches and all geometry lives in flat device tables.
 
-Two paths, chosen statically at trace time:
-  * brute force over all prims (fori_loop, running best) — optimal for the
-    small analytic scenes (cbox has ~36 tris + 2 spheres);
-  * BVH traversal — for mesh scenes (bunny 69k tris etc.).
+Three routes, chosen statically at trace time from the prim count:
+  * brute force over all prims at once (<= BRUTE_FORCE_MAX_PRIMS) — the
+    small analytic scenes (cbox is 12 tris + 2 spheres);
+  * a ``lax.scan`` over wide triangle chunks (<= CHUNKED_MAX_PRIMS);
+  * BVH traversal, a vmapped per-ray ``while_loop`` — bunny-class meshes.
 """
 
 from __future__ import annotations
@@ -16,8 +16,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-import flax.struct
-
+from tpu_rt.core import struct
 from tpu_rt.core.math import (
     normalize,
     transform_point,
@@ -38,17 +37,17 @@ from tpu_rt.scene.types import (
 # Finite miss sentinel (see tpu_rt.geometry.intersect.INF): keeps jax.grad
 # free of inf * 0 = NaN cotangents through the bounce loop.
 INF = jnp.float32(1e8)
+# Route thresholds (see the module docstring).  These values date from
+# another accelerator and have not been re-swept on the GPU yet; ROADMAP S4
+# re-sweeps them from a trace.
 BRUTE_FORCE_MAX_PRIMS = 192
-# Mid-size scenes (teapot: 2256 tris) use a lax.scan over wide prim chunks —
-# far faster on TPU than divergent per-ray BVH stacks; only bunny-class
-# meshes fall through to the BVH.
 CHUNKED_MAX_PRIMS = 8192
 CHUNK = 512
 STACK_DEPTH = 48
 RAY_EPS = 1e-4
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Hit:
     t: jnp.ndarray  # [N]
     prim: jnp.ndarray  # [N] global prim id (-1 on miss)
@@ -60,9 +59,9 @@ class Hit:
         return self.prim >= 0
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Interaction:
-    """SoA SurfaceInteraction (TPU equivalent of mi.SurfaceInteraction3f)."""
+    """SoA SurfaceInteraction (equivalent of mi.SurfaceInteraction3f)."""
 
     valid: jnp.ndarray  # [N] bool
     t: jnp.ndarray  # [N]
@@ -162,8 +161,8 @@ def _intersect_prim(geom: Geometry, pid, o, d, tmin, tmax):
 
 def _trace_bruteforce(geom: Geometry, o, d, tmin, tmax) -> Hit:
     """All-prims-at-once brute force: one wide (N, P) vectorized intersection
-    + argmin, instead of a sequential loop — the TPU-friendly shape for the
-    small analytic scenes (cbox is 12 tris + 2 spheres)."""
+    + argmin, instead of a sequential loop, for the small analytic scenes
+    (cbox is 12 tris + 2 spheres)."""
     # Keep the search range strictly below the finite miss sentinel so a
     # caller-provided tmax of +inf can't turn sentinel values into "hits".
     tmax = jnp.minimum(tmax, 0.99 * INF)
@@ -186,8 +185,8 @@ def _trace_bruteforce(geom: Geometry, o, d, tmin, tmax) -> Hit:
     if geom.n_analytic > 0:
         rot = geom.an_to_object[:, :3, :3]  # [A, 3, 3]
         trans = geom.an_to_object[:, :3, 3]  # [A, 3]
-        # full-f32 matvec (einsum would take the bf16 MXU path on TPU and
-        # quantize ray geometry — see core.math.transform_point note)
+        # full-f32 multiply-adds, not a dot: a default-precision f32 dot
+        # may round ray geometry (see core.math.transform_point note)
         o_f = o.reshape(-1, 1, 1, 3)
         d_f = d.reshape(-1, 1, 1, 3)
         oo = jnp.sum(rot[None] * o_f, axis=-1) + trans[None]
@@ -396,119 +395,13 @@ def _trace_bvh(geom: Geometry, o, d, tmin, tmax) -> Hit:
 
 
 # ---------------------------------------------------------------------------
-# Pallas mesh-kernel path
-# ---------------------------------------------------------------------------
-
-def _pallas_mesh_available(geom: Geometry) -> bool:
-    from tpu_rt.ops import pallas_mesh
-
-    if geom.cl_tris is None:
-        return False
-    if pallas_mesh.INTERPRET:
-        return True
-    return jax.default_backend() == "tpu"
-
-
-def _trace_mesh_pallas(geom: Geometry, o, d, tmin, tmax) -> Hit:
-    """Triangles via the Pallas clustered sweep; analytic prims merged in
-    with the wide XLA sweep (mesh scenes carry at most a handful)."""
-    from tpu_rt.ops import pallas_mesh
-
-    tmax = jnp.minimum(tmax, 0.99 * INF)  # see _trace_bruteforce
-    shp = o.shape[:-1]
-    of = o.reshape(-1, 3)
-    df = d.reshape(-1, 3)
-    n = of.shape[0]
-    tmax_b = jnp.broadcast_to(tmax, shp).reshape(-1).astype(jnp.float32)
-
-    clusters = {"tris": geom.cl_tris, "bounds": geom.cl_bounds,
-                "prim": geom.cl_prim, "trisw": geom.cl_trisw}
-    best_t, best_prim, best_u, best_v = pallas_mesh.mesh_intersect(
-        clusters, of, df, tmin=float(tmin), tmax=tmax_b
-    )
-
-    if geom.n_analytic > 0:
-        rot = geom.an_to_object[:, :3, :3]
-        trans = geom.an_to_object[:, :3, 3]
-        o_f = of.reshape(-1, 1, 1, 3)
-        d_f = df.reshape(-1, 1, 1, 3)
-        oo = jnp.sum(rot[None] * o_f, axis=-1) + trans[None]
-        od = jnp.sum(rot[None] * d_f, axis=-1)
-        tmin_b = jnp.broadcast_to(tmin, (n,)).reshape(-1, 1)
-        t_a, u_a, v_a = _analytic_sweep(
-            geom, geom.an_type[None, :], _an_params(geom)[None], oo, od,
-            tmin_b, best_t[:, None]
-        )
-        ai = jnp.argmin(t_a, axis=1)
-        idx = ai[:, None]
-        t_c = jnp.take_along_axis(t_a, idx, axis=1)[:, 0]
-        closer = t_c < best_t
-        best_prim = jnp.where(closer, geom.n_tris + ai.astype(jnp.int32), best_prim)
-        best_t = jnp.where(closer, t_c, best_t)
-        best_u = jnp.where(closer, jnp.take_along_axis(u_a, idx, axis=1)[:, 0], best_u)
-        best_v = jnp.where(closer, jnp.take_along_axis(v_a, idx, axis=1)[:, 0], best_v)
-
-    hit = best_prim >= 0
-    return Hit(
-        t=jnp.where(hit, best_t, INF).reshape(shp),
-        prim=best_prim.reshape(shp),
-        u=best_u.reshape(shp),
-        v=best_v.reshape(shp),
-    )
-
-
-def gi_sort_order(geom: Geometry, o, d):
-    """Coherence permutation for divergent (secondary-bounce) rays on
-    clustered-mesh scenes: stable argsort by (origin cell in the mesh
-    AABB, direction octant).
-
-    The cluster kernel's culling is per (tm, 128)-ray BLOCK (host interval
-    cull + in-kernel slab tests, ops/pallas_mesh.py) — a block's cost is
-    the union of its lanes' live clusters.  Primary tiles are coherent by
-    construction (``_tile_perm``), but cosine-hemisphere bounce rays
-    scatter each block over the whole sphere of directions, so every block
-    sweeps most of the mesh.  Grouping rays that start in the same region
-    AND leave in the same direction octant shrinks each block's corridor
-    to a compact beam again.  Per-ray results are order-independent, so
-    sort -> intersect -> unsort is exact (no estimator change).
-
-    MEASURED DEAD END on v5e (r5): bunny GI 12% slower sorted — see
-    integrator/path.py gi_sort note; kept behind TPU_RT_GI_SORT=1.
-
-    Returns (order, inv_order); apply as x[order] in, y[inv_order] out.
-    """
-    # Mesh AABB over LIVE clusters only (pad clusters carry far-point
-    # boxes — see build_clusters; including them would flatten the grid).
-    live = geom.cl_bounds[:, 6] > 0.0
-    big = jnp.float32(1e30)
-    lo = jnp.min(jnp.where(live[:, None], geom.cl_bounds[:, 0:3], big), axis=0)
-    hi = jnp.max(jnp.where(live[:, None], geom.cl_bounds[:, 3:6], -big), axis=0)
-    inv_ext = 4.0 / jnp.maximum(hi - lo, 1e-6)
-    q = jnp.clip(jnp.floor((o - lo) * inv_ext), 0.0, 3.0).astype(jnp.int32)
-    cell = (q[:, 0] * 4 + q[:, 1]) * 4 + q[:, 2]
-    octant = (
-        (d[:, 0] > 0).astype(jnp.int32) * 4
-        + (d[:, 1] > 0).astype(jnp.int32) * 2
-        + (d[:, 2] > 0).astype(jnp.int32)
-    )
-    order = jnp.argsort(cell * 8 + octant, stable=True)
-    return order, jnp.argsort(order, stable=True)
-
-
-# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
 def ray_intersect_hit(geom: Geometry, o, d, tmin=RAY_EPS, tmax=INF) -> Hit:
     P = geom.n_tris + geom.n_analytic
     if P <= BRUTE_FORCE_MAX_PRIMS:
-        # NOTE round-2 measured the component-form single-step sweep
-        # (_trace_chunked with chunk=T) at 323 ms vs 261 ms per cbox 512^2
-        # pass for the whole path tracer — the (N, P, 3) vector form fuses
-        # BETTER here despite its larger op count.  Keep the vector form.
         return _trace_bruteforce(geom, o, d, tmin, tmax)
-    if _pallas_mesh_available(geom):
-        return _trace_mesh_pallas(geom, o, d, tmin, tmax)
     if P <= CHUNKED_MAX_PRIMS:
         return _trace_chunked(geom, o, d, tmin, tmax)
     return _trace_bvh(geom, o, d, tmin, tmax)

@@ -35,43 +35,15 @@ def render(scene: Scene, spp=None, seed=0, **kwargs):
         # `direct` only in HOW discontinuity (silhouette) gradients are
         # estimated under differentiation; its PRIMAL image is the direct
         # integrator's.  tpu_rt renders it as direct and differentiates the
-        # continuous terms via jax.grad (detached-geometry convention,
-        # ops/pallas_mesh.py VJP note) — projective silhouette gradients
-        # are a documented no-op, matching the reference's actual usage
-        # (shadow_art is never differentiated there).
+        # continuous terms via jax.grad (detached geometry) — projective
+        # silhouette gradients are a documented no-op, matching the
+        # reference's actual usage (shadow_art is never differentiated
+        # there).
         scene = scene.replace(integrator=INTEGRATOR_DIRECT)
     if scene.integrator in (INTEGRATOR_PATH, INTEGRATOR_DIRECT):
         from tpu_rt.integrator.path import render as render_path
 
         max_depth = 2 if scene.integrator == INTEGRATOR_DIRECT else None
-        if scene.integrator == INTEGRATOR_PATH and set(kwargs) <= {"spp_per_pass"}:
-            # The Pallas megakernel IS the product path for in-scope path
-            # scenes (mi.render semantics: the fastest integrator is the
-            # default — /root/reference/USMain.py:99, SURVEY §3.3).  It runs
-            # on TPU backends, or in interpret mode under the CPU test
-            # conftest; anything out of kernel scope falls through to the
-            # XLA wavefront tracer.
-            from tpu_rt.ops import pallas_path
-
-            if pallas_path.available():
-                baked = pallas_path.bake_scene(scene)
-                if baked is not None:
-                    return _finalize(scene, pallas_path.render_pallas(
-                        scene, spp=spp, seed=seed, baked=baked, **kwargs
-                    ))
-        if scene.integrator == INTEGRATOR_DIRECT and not kwargs:
-            # Fused direct-illumination mesh megakernel (trace + shade +
-            # shadow rays on-core) when the scene is in scope and a Pallas
-            # backend is available (TPU, or interpret mode in tests).
-            from tpu_rt.geometry.trace import _pallas_mesh_available
-            from tpu_rt.ops import pallas_mesh
-
-            if _pallas_mesh_available(scene.geometry):
-                baked = pallas_mesh.bake_direct_scene(scene)
-                if baked is not None:
-                    return _finalize(scene, pallas_mesh.mesh_direct_render(
-                        scene, spp=spp, seed=seed, baked=baked
-                    ))
         return _finalize(scene, render_path(
             scene, spp=spp, seed=seed, max_depth=max_depth, **kwargs))
     if scene.integrator == INTEGRATOR_STOKES:

@@ -9,7 +9,7 @@ projective/boundary sampling inside Dr.Jit; the reference repo itself
 never backpropagates through shadow_art, so the capability contract here
 is the *derivative*, not Mitsuba's particular estimator.
 
-TPU-native design — analytic edge softening over the EXACT curve prims:
+JAX design — analytic edge softening over the EXACT curve prims:
 
 * The scene's swept-sphere curve segments (``scene/build.py`` bakes
   Mitsuba ``bsplinecurve`` spans as round-cone prims: world axis
@@ -29,7 +29,7 @@ TPU-native design — analytic edge softening over the EXACT curve prims:
 
 This is the standard reparameterization-free "soft shadow" estimator: a
 vectorized closed form with no data-dependent control flow, which maps
-onto the TPU VPU as a [rays x segments] broadcast — unlike Mitsuba's
+onto the device as a [rays x segments] broadcast — unlike Mitsuba's
 boundary sampling, which walks silhouette edges with divergent loops.
 
 Validation: ``tests/test_projective.py`` compares ``jax.grad`` of a

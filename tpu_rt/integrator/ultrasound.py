@@ -1,6 +1,6 @@
 """Ultrasound Monte-Carlo acquisition integrator.
 
-TPU-native rebuild of UltraIntegrator.simulate_acquisition
+JAX rebuild of UltraIntegrator.simulate_acquisition
 (/root/reference/CustomIntegrator.py:60-232, the vectorized Dr.Jit design)
 and simulate_acquisition_parallel (:235-405, the threaded variant actually
 run by USMain.py:99): for every (plane-wave angle x transducer element)
@@ -56,7 +56,7 @@ def simulate_acquisition(scene: Scene, seed=0, rays_per_pair=1,
       scene: compiled Scene with scene.ultrasound config.
       seed: RNG seed.
       rays_per_pair: samples per (angle, element) pair (1 matches the
-        reference; more reduces variance on TPU where lanes are cheap).
+        reference; more reduces variance at little cost per lane).
       jitter_elements: jitter ray origins within the element aperture.
       deposit_sin: True (reference behavior, CustomIntegrator.py:187)
         deposits atten*amp*fd*sin(phase) instantaneously; False deposits the

@@ -21,7 +21,7 @@ def _build_library():
     src = os.path.join(_THIS_DIR, "bvh_builder.cpp")
     build_dir = os.path.join(_THIS_DIR, "_build")
     os.makedirs(build_dir, exist_ok=True)
-    so_path = os.path.join(build_dir, "libtpu_rt_native.so")
+    so_path = os.path.join(build_dir, "libbvh_builder.so")
     if os.path.exists(so_path) and os.path.getmtime(so_path) >= os.path.getmtime(src):
         return so_path
     cmd = [

@@ -1,6 +1,6 @@
 // Native binned-SAH BVH builder.
 //
-// TPU-native framework's equivalent of the C++ BVH construction the
+// Framework's equivalent of the C++ BVH construction the
 // reference consumed through Embree/OptiX (scene.ray_intersect,
 // /root/reference/CustomIntegrator.py:146 — SURVEY.md §2b).  Semantics
 // mirror tpu_rt/geometry/bvh.py (same node layout, same leaf size and bin

@@ -1,10 +1,11 @@
 """Multi-chip data-parallel rendering: shard_map over ray tiles + psum film.
 
-This is the TPU-native scaling story (SURVEY.md §2c): pure data parallelism
-over (pixel x spp) work, a 1-D device mesh, per-chip local film scatter-add,
-and a single `psum` over ICI to reduce films (and, under jax.grad, gradient
-psums in reverse).  The reference's only concurrency was a Python
-ThreadPoolExecutor (CustomIntegrator.py:398).
+The scaling story (SURVEY.md §2c): pure data parallelism over (pixel x spp)
+work, a 1-D device mesh, per-device local film scatter-add, and a single
+`psum` to reduce films (and, under jax.grad, gradient psums in reverse).
+The mesh is a flat list of devices, which suits GPUs joined all to all.
+The reference's only concurrency was a Python ThreadPoolExecutor
+(CustomIntegrator.py:398).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def render_pass_sharded(scene: Scene, key, mesh: Mesh, max_depth=None):
     """One spp over all pixels, sharded across the mesh.
 
     Pixels are tiled over the 'rays' mesh axis; every device splats its
-    samples into a local film and the films are psum-reduced over ICI.
+    samples into a local film and the films are psum-reduced.
     Returns (film_vals [H,W,3], film_wts [H,W], n_rays) fully replicated.
     """
     c = scene.camera
@@ -71,214 +72,6 @@ def render_pass_sharded(scene: Scene, key, mesh: Mesh, max_depth=None):
         check_vma=False,
     )
     return fn(xy_int, valid, keys)
-
-
-def render_pallas_sharded(scene: Scene, spp=None, seed=0, mesh=None,
-                          tile_rows=None, interpret=None):
-    """Multi-chip render through the Pallas megakernel (VERDICT r2 #4: the
-    fast renderer needs a >1-chip story, not just the XLA tracer).
-
-    Data parallelism over SAMPLES: every device runs the in-kernel-film
-    megakernel over the full pixel grid with its own slice of the spp
-    budget and a device-distinct RNG seed, then the partial films are
-    psum-reduced over ICI.  Sample-sharding (vs pixel-tiling) keeps the
-    kernel's baked raygen untouched and is load-balanced by construction —
-    every chip traces the same ray distribution.
-
-    Requires spp % n_devices == 0.  Returns the (H, W, 3) image.
-    """
-    import numpy as np
-
-    from tpu_rt.ops import pallas_path as pp
-
-    mesh = mesh or default_mesh()
-    if interpret is None:
-        interpret = pp.INTERPRET
-    if tile_rows is None:
-        tile_rows = 8 if interpret else 16
-    bs = pp.bake_scene(scene)
-    if bs is None:
-        raise ValueError("scene not supported by the pallas megakernel")
-    c = scene.camera
-    from tpu_rt.scene.types import FILTER_BOX, FILTER_TENT
-
-    if bs.env_textured or c.filter_type not in (FILTER_BOX, FILTER_TENT):
-        raise ValueError(
-            "sharded megakernel render needs the in-kernel-film path "
-            "(box/tent filter, no textured env)"
-        )
-    spp = c.spp if spp is None else spp
-    n_dev = mesh.devices.size
-    assert spp % n_dev == 0, f"spp {spp} must divide over {n_dev} devices"
-    k = spp // n_dev
-    H, W = c.height, c.width
-    n = H * W
-    tent = c.filter_type == FILTER_TENT
-    axis = mesh.axis_names[0]
-
-    # Device-distinct kernel seeds, disjoint from the single-chip stream's
-    # seed*100003 + done sequence.
-    seeds = (np.int32(seed) * np.int32(100003)
-             + np.arange(n_dev, dtype=np.int32) * np.int32(7919)).reshape(-1, 1)
-
-    def shard_fn(seeds_shard):
-        accs, nr = pp.pallas_film_trace(
-            bs, c, seeds_shard[0, 0], k, tile_rows=tile_rows,
-            interpret=interpret, regen=pp._use_regen(bs),
-        )
-
-        def img2(p):
-            return p.reshape(-1)[:n].reshape(H, W)
-
-        fvr = jnp.zeros((H, W), jnp.float32)
-        fvg = jnp.zeros_like(fvr)
-        fvb = jnp.zeros_like(fvr)
-        fw = jnp.zeros_like(fvr)
-        if tent:
-            i = 0
-            for dy in (-1, 0, 1):
-                for dx in (-1, 0, 1):
-                    fvr = film_mod._shift_add(fvr, img2(accs[i]), dy, dx)
-                    fvg = film_mod._shift_add(fvg, img2(accs[i + 1]), dy, dx)
-                    fvb = film_mod._shift_add(fvb, img2(accs[i + 2]), dy, dx)
-                    fw = film_mod._shift_add(fw, img2(accs[i + 3]), dy, dx)
-                    i += 4
-        else:
-            fvr, fvg, fvb, fw = (x + img2(a) for x, a in
-                                 zip((fvr, fvg, fvb, fw), accs[:4]))
-        fvr = jax.lax.psum(fvr, axis)
-        fvg = jax.lax.psum(fvg, axis)
-        fvb = jax.lax.psum(fvb, axis)
-        fw = jax.lax.psum(fw, axis)
-        n_rays = jax.lax.psum(jnp.sum(nr).astype(jnp.int32), axis)
-        return fvr, fvg, fvb, fw, n_rays
-
-    fn = shard_map(
-        shard_fn, mesh=mesh, in_specs=(P(axis),), out_specs=(P(),) * 5,
-        check_vma=False,
-    )
-    fvr, fvg, fvb, fw, n_rays = jax.jit(fn)(jnp.asarray(seeds))
-    render_pallas_sharded.last_ray_count = int(n_rays)
-    img = jnp.stack([fvr, fvg, fvb], -1) / jnp.maximum(fw[..., None], 1e-12)
-    return img
-
-
-def render_stokes_pallas_sharded(scene: Scene, spp=None, seed=0, mesh=None,
-                                 tile_rows=None, interpret=None):
-    """Multi-chip polarized render through the Stokes Mueller megakernel:
-    the single-chip seed range seed0 + [0, spp) is partitioned over the
-    device mesh (device i scans its contiguous k-seed slice), partial
-    (H, W, 12) Stokes films psum over ICI — so the result equals the
-    single-chip render_stokes_pallas up to f32 add order.
-
-    Requires spp % n_devices == 0.  Returns (H, W, 4, 3).
-    """
-    from tpu_rt.ops import pallas_path as pp
-
-    mesh = mesh or default_mesh()
-    if interpret is None:
-        interpret = pp.INTERPRET
-    if tile_rows is None:
-        tile_rows = 8 if interpret else 16
-    bs = pp.bake_scene(scene)
-    if not pp.stokes_in_scope(bs):
-        raise ValueError("scene not supported by the stokes megakernel")
-    c = scene.camera
-    spp = c.spp if spp is None else spp
-    n_dev = mesh.devices.size
-    assert spp % n_dev == 0, f"spp {spp} must divide over {n_dev} devices"
-    k = spp // n_dev
-    H, W = c.height, c.width
-    axis = mesh.axis_names[0]
-
-    from tpu_rt.scene.types import FILTER_BOX, FILTER_TENT
-
-    if c.filter_type in (FILTER_BOX, FILTER_TENT):
-        # Box/tent polarized scenes shard the IN-KERNEL film path (13
-        # Stokes+weight planes per filter offset) exactly like the scalar
-        # render_pallas_sharded — one film-mode kernel launch per device
-        # over its spp slice, accumulator planes psum-reduced.
-        import numpy as np
-
-        n = H * W
-        tent = c.filter_type == FILTER_TENT
-        NP = 13
-        # Device i consumes the single-chip chunk-seed sequence's i-th
-        # chunk (seed0 + i*k, k samples), so the sharded render equals
-        # render_stokes_pallas(spp, spp_per_pass=k) up to psum add order.
-        seeds_f = (np.int32(seed) * np.int32(100003)
-                   + np.arange(n_dev, dtype=np.int32)
-                   * np.int32(k)).reshape(-1, 1)
-
-        def shard_fn_film(seeds_shard):
-            accs, nr = pp.pallas_film_trace(
-                bs, c, seeds_shard[0, 0], k, tile_rows=tile_rows,
-                interpret=interpret, stokes=True, regen=pp._use_regen(bs),
-            )
-
-            def img2(p):
-                return p.reshape(-1)[:n].reshape(H, W)
-
-            film = tuple(jnp.zeros((H, W), jnp.float32) for _ in range(NP))
-            if tent:
-                i = 0
-                for dy in (-1, 0, 1):
-                    for dx in (-1, 0, 1):
-                        film = tuple(
-                            film_mod._shift_add(f, img2(accs[i + j]), dy, dx)
-                            for j, f in enumerate(film)
-                        )
-                        i += NP
-            else:
-                film = tuple(f + img2(a) for f, a in zip(film, accs[:NP]))
-            film = tuple(jax.lax.psum(f, axis) for f in film)
-            n_rays = jax.lax.psum(jnp.sum(nr).astype(jnp.int32), axis)
-            return film + (n_rays,)
-
-        fn = shard_map(
-            shard_fn_film, mesh=mesh, in_specs=(P(axis),),
-            out_specs=(P(),) * (NP + 1), check_vma=False,
-        )
-        outs = jax.jit(fn)(jnp.asarray(seeds_f))
-        film, n_rays = outs[:NP], outs[NP]
-        render_stokes_pallas_sharded.last_ray_count = int(n_rays)
-        fw = film[-1]
-        S = jnp.stack(film[:-1], -1) / jnp.maximum(fw[..., None], 1e-12)
-        return S.reshape(H, W, 4, 3)
-
-    seed0 = jnp.int32(seed * 100003)
-    seeds = seed0 + jnp.arange(spp, dtype=jnp.int32).reshape(n_dev, k)
-
-    def shard_fn(seeds_shard):
-        def one(carry, seed_i):
-            fv, fw, acc = carry
-            S, jitter, n_rays = pp.pallas_stokes_trace(
-                bs, c, seed_i, tile_rows=tile_rows, interpret=interpret
-            )
-            S = S.reshape(-1, 12)
-            ok = jnp.all(jnp.isfinite(S), axis=-1)
-            fv, fw = film_mod.splat_aligned(
-                fv, fw, jitter.reshape(H, W, 2),
-                jnp.where(ok[:, None], S, 0.0).reshape(H, W, 12),
-                ok.reshape(H, W), c.filter_type,
-            )
-            return (fv, fw, acc + n_rays), None
-
-        fv = jnp.zeros((H, W, 12), jnp.float32)
-        fw = jnp.zeros((H, W), jnp.float32)
-        (fv, fw, acc), _ = jax.lax.scan(
-            one, (fv, fw, jnp.zeros((), jnp.int32)), seeds_shard[0]
-        )
-        return (jax.lax.psum(fv, axis), jax.lax.psum(fw, axis),
-                jax.lax.psum(acc, axis))
-
-    fn = shard_map(
-        shard_fn, mesh=mesh, in_specs=(P(axis),), out_specs=(P(),) * 3,
-        check_vma=False,
-    )
-    fv, fw, n_rays = jax.jit(fn)(seeds)
-    render_stokes_pallas_sharded.last_ray_count = n_rays
-    return film_mod.develop(fv, fw).reshape(H, W, 4, 3)
 
 
 def render_sharded(scene: Scene, spp=None, seed=0, mesh=None, max_depth=None):

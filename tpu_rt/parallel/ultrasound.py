@@ -1,11 +1,11 @@
 """Multi-chip ultrasound acquisition: shard_map + psum RF channel buffers.
 
-SURVEY.md §2c's TPU-native mapping covers BOTH grids: optical renders shard
+SURVEY.md §2c's parallel mapping covers BOTH grids: optical renders shard
 (pixel x spp) work (parallel/render.py); the acoustic acquisition shards the
 (angle x element x spp) megabatch.  Sample slices are split by
 samples-per-pair across a 1-D device mesh — every chip traces its slice
 through the full bounce loop, scatter-adds a local RF buffer, and one
-`psum` over ICI reduces the buffers (the dr.scatter_reduce + thread-pool
+`psum` reduces the buffers (the dr.scatter_reduce + thread-pool
 analogue of /root/reference/CustomIntegrator.py:203,398, scaled out).
 
 Gradients flow through the psum in reverse, so sharded inverse rendering
@@ -58,52 +58,6 @@ def simulate_acquisition_sharded(scene: Scene, seed=0, rays_per_pair=8,
     return fn(scene, seeds)
 
 
-def simulate_acquisition_pallas_sharded(scene: Scene, seed=0,
-                                        rays_per_pair=8, mesh: Mesh = None,
-                                        interpret=False):
-    """Sharded acquisition through the ultrasound MEGAKERNEL
-    (ops/pallas_us.py): every device traces its samples-per-pair slice
-    with the Pallas bounce kernel under its own RNG stream and the
-    per-chip RF buffers psum-average over ICI — the kernel-speed
-    counterpart of simulate_acquisition_sharded (which shards the XLA
-    tracer).
-
-    Both paths normalize their local buffer by the LOCAL samples per
-    pair, so the psum/n_dev here is the mean over all
-    n_dev * ceil(rays_per_pair / n_dev) samples.  Raises ValueError when
-    the scene is outside kernel scope (caller falls back to the XLA
-    sharded path).  Returns (channel_buf [A,E,T], tx_delays [A,E]).
-    """
-    from tpu_rt.ops.pallas_us import bake_us_scene, simulate_acquisition_pallas
-
-    bs = bake_us_scene(scene)
-    if bs is None:
-        raise ValueError("scene not supported by the ultrasound megakernel")
-    mesh = mesh or default_mesh()
-    n_dev = mesh.devices.size
-    rpp_local = -(-rays_per_pair // n_dev)
-    axis = mesh.axis_names[0]
-
-    seeds = seed + jnp.arange(n_dev, dtype=jnp.int32) * 7919
-
-    def shard_fn(seed_shard):
-        ch, tx = simulate_acquisition_pallas(
-            scene, seed=seed_shard[0], rays_per_pair=rpp_local,
-            baked=bs, interpret=interpret,
-        )
-        ch = jax.lax.psum(ch, axis) / n_dev
-        return ch, tx
-
-    fn = shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P(axis),),
-        out_specs=(P(), P()),
-        check_vma=False,
-    )
-    return jax.jit(fn)(seeds)
-
-
 def das_beamform_sharded(channel_data, angles_deg, elem_x, fs, c, x_grid,
                          z_grid, t_offset=0.0, elem_z=None, mesh: Mesh = None,
                          method="matmul"):
@@ -113,7 +67,7 @@ def das_beamform_sharded(channel_data, angles_deg, elem_x, fs, c, x_grid,
     DAS is embarrassingly parallel over pixels (every pixel reads the whole
     [A, E, T] buffer — /root/reference/USMain.py:204-207 beamforms the full
     GridScan on one host), so each device beamforms its contiguous x-tile
-    with the stock kernel (us/beamform.py, 'matmul' MXU form or 'gather')
+    with the stock kernel (us/beamform.py, 'matmul' or 'gather' form)
     and the tiles concatenate along x with NO collective: per-pixel sums
     run in the same order as the single-chip kernel, so results match it
     exactly.  Returns the beamformed image [Nx, Nz].
@@ -147,9 +101,8 @@ def das_beamform_sharded(channel_data, angles_deg, elem_x, fs, c, x_grid,
 
         # The tile shape MUST match what the inner call uses (it is passed
         # explicitly below): sizing for one shape and tiling with another
-        # under-sizes the window and silently drops taps.  8x8 is the
-        # measured-best tile under the one-hot GEMM window fetch
-        # (tools/diag_das.py: 113 ms vs 309 ms at the old 64x64).
+        # under-sizes the window and silently drops taps.  8x8 is
+        # das_beamform_matmul's default tile.
         TX, TZ = 8, 8
         dx = float(x_grid[1] - x_grid[0]) if Nx > 1 else 0.0
         dz = float(z_grid[1] - z_grid[0]) if z_grid.shape[0] > 1 else 0.0

@@ -1,9 +1,17 @@
 """Scene loading API (equivalents of mi.load_file / mi.load_dict)."""
 
+import os
+
 from tpu_rt.scene.build import build_scene
 from tpu_rt.scene.transforms import ScalarTransform4f  # noqa: F401
 from tpu_rt.scene.types import Scene, Camera, UltrasoundConfig  # noqa: F401
 from tpu_rt.scene.xml_loader import load_xml
+
+# The scenes that ship with the repository (``scenes/`` at its root).
+SCENE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "scenes",
+)
 
 
 def load_file(path, **overrides):

@@ -1,6 +1,6 @@
 """Scene compiler: Mitsuba-style description dict -> flat device Scene.
 
-TPU-native replacement for mi.load_dict / mi.load_file
+JAX replacement for mi.load_dict / mi.load_file
 (/root/reference/USMain.py:257; SURVEY.md §2b scene-construction row).
 All geometry is flattened to SoA jnp arrays; meshes are pre-transformed to
 world space; a SAH BVH is built host-side; emitters are compiled into
@@ -551,36 +551,6 @@ class _Builder:
             bb_max = np.zeros((0, 3), np.float32)
         bvh = build_bvh(bb_min, bb_max)
 
-        # Clustered triangle tables for the Pallas mesh-sweep kernel —
-        # only worth building (and paying HBM for) on mesh-class scenes;
-        # small scenes take the wide brute-force XLA path.
-        clusters = None
-        if n_tris > 192:  # trace.BRUTE_FORCE_MAX_PRIMS
-            from tpu_rt.ops.pallas_mesh import (
-                SEGMENT_C,
-                _treelet_ranges,
-                build_clusters,
-            )
-
-            # Treelet size: 64-tri treelets halve the AABB volume (tighter
-            # culls, shorter sweeps; dynamic trip counts mean empty lanes
-            # cost nothing) — measured +10-35% on teapot — but larger
-            # meshes pay per-segment launch overhead for the 2x cluster
-            # count (bunny measured 62.3M at 128 vs 56.1M at 64), so only
-            # meshes whose 64-tri treelets still fit ONE SMEM segment
-            # take the smaller size (tools/sweep_mesh_clsize.py).
-            tl_env = os.environ.get("TPU_RT_MESH_TREELET", "")
-            if tl_env:
-                max_count = int(tl_env)
-            else:
-                max_count = 64 if len(
-                    _treelet_ranges(bvh, n_tris, max_count=64)
-                ) <= SEGMENT_C else 128
-            clusters = build_clusters(
-                tri_p0, cat("e1", 3), cat("e2", 3), bvh=bvh,
-                max_count=max_count,
-            )
-
         geometry = Geometry(
             tri_p0=jnp.asarray(tri_p0),
             tri_e1=jnp.asarray(cat("e1", 3)),
@@ -605,10 +575,6 @@ class _Builder:
             bvh_b=jnp.asarray(bvh["b"]),
             bvh_count=jnp.asarray(bvh["count"]),
             prim_order=jnp.asarray(bvh["prim_order"]),
-            cl_tris=jnp.asarray(clusters["tris"]) if clusters else None,
-            cl_bounds=jnp.asarray(clusters["bounds"]) if clusters else None,
-            cl_prim=jnp.asarray(clusters["prim"]) if clusters else None,
-            cl_trisw=jnp.asarray(clusters["trisw"]) if clusters else None,
             n_tris=n_tris,
             n_analytic=n_an,
             analytic_types=tuple(sorted(set(int(t) for t in self.an["type"]))),

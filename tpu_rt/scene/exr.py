@@ -1,6 +1,6 @@
 """Minimal OpenEXR scanline reader (NONE / RLE / ZIPS / ZIP compression).
 
-TPU-native replacement for Mitsuba's EXR loading of envmap textures
+JAX replacement for Mitsuba's EXR loading of envmap textures
 (/root/reference/scenes/polarizers.xml:47-52).  PIZ-compressed files (like
 the reference's envmap.exr) are not yet supported offline — they fall back to
 a neutral gray map with a warning; implementing the PIZ wavelet+Huffman codec

@@ -1,6 +1,6 @@
 """Pure numpy/stdlib baseline JPEG (SOF0) decoder.
 
-TPU-native replacement for the bitmap decoding the reference's consumed
+JAX replacement for the bitmap decoding the reference's consumed
 Mitsuba stack gets from libjpeg (asset shipped at
 /root/reference/scenes/textures/flower_photo_downscale.jpeg).  Written
 from the ITU T.81 spec (annex F baseline sequential process), not from any

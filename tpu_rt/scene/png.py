@@ -1,6 +1,6 @@
 """Pure-stdlib PNG reader (zlib inflate + per-scanline unfilter).
 
-TPU-native replacement for the bitmap texture loading the reference gets
+JAX replacement for the bitmap texture loading the reference gets
 from Mitsuba's libpng binding (assets shipped at
 /root/reference/scenes/textures/image_001.png .. image_004.png; the
 consumed `mi.load_dict` stack binds them to BSDF parameters as

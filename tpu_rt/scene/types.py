@@ -1,9 +1,9 @@
 """Flat, device-resident scene representation (the "scene compiler" target).
 
 The reference delegates scene storage to Mitsuba's C++ object graph
-(mi.load_dict at /root/reference/USMain.py:257, XML scenes).  TPU-native
+(mi.load_dict at /root/reference/USMain.py:257, XML scenes).  This
 design instead compiles every scene into a frozen pytree of flat jnp arrays
-(SoA) so the whole render is a single jit-compiled program over HBM-resident
+(SoA) so the whole render is a single jit-compiled program over device-resident
 tables — no host<->device crossings per bounce (contrast
 /root/reference/CustomIntegrator.py:309 which crosses Python->C++ per ray).
 
@@ -17,9 +17,10 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-import flax.struct
 import jax.numpy as jnp
 import numpy as np
+
+from tpu_rt.core import struct
 
 # Shape type enums (analytic primitives)
 SPHERE = 0
@@ -76,7 +77,7 @@ def _i32(x):
     return jnp.asarray(x, jnp.int32)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Geometry:
     """All primitives, flattened.  Prim ids: [0, n_tris) are triangles,
     [n_tris, n_tris + n_analytic) index the analytic tables."""
@@ -107,26 +108,18 @@ class Geometry:
     bvh_count: jnp.ndarray  # [M] 0 for internal, >0 leaf prim count
     prim_order: jnp.ndarray  # [T + A]
 
-    # Clustered triangle tables for the Pallas mesh kernel
-    # (tpu_rt.ops.pallas_mesh) — built for mesh-class scenes only.
-    cl_tris: Optional[jnp.ndarray] = None  # [C, 9, 128]
-    cl_bounds: Optional[jnp.ndarray] = None  # [C, 32] (pallas_mesh.build_clusters)
-    cl_prim: Optional[jnp.ndarray] = None  # [C * 128]
-    # precomputed-transform triangle table (pallas_mesh._bw_table)
-    cl_trisw: Optional[jnp.ndarray] = None  # [C, 12, 128]
-
     # Per-prim scalar parameters ([A, 2]; CURVE: [r0, r1] in object units,
     # zeros for parameter-free types).  Optional for pytree compat.
     an_param: Optional[jnp.ndarray] = None
 
-    n_tris: int = flax.struct.field(pytree_node=False, default=0)
-    n_analytic: int = flax.struct.field(pytree_node=False, default=0)
+    n_tris: int = struct.field(pytree_node=False, default=0)
+    n_analytic: int = struct.field(pytree_node=False, default=0)
     # Static set of analytic shape types present — lets the tracer skip
     # intersectors for absent types at compile time.
-    analytic_types: tuple = flax.struct.field(pytree_node=False, default=())
+    analytic_types: tuple = struct.field(pytree_node=False, default=())
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Emitters:
     """NEE-ready emitter tables.  Light units are selected uniformly
     (Mitsuba-style), then sampled within the unit."""
@@ -152,34 +145,34 @@ class Emitters:
     env_cdf_cols: jnp.ndarray  # [H, W] conditional CDF within row
     env_scale: jnp.ndarray  # [] scalar radiance scale
 
-    n_area: int = flax.struct.field(pytree_node=False, default=0)
-    n_point: int = flax.struct.field(pytree_node=False, default=0)
-    has_env: bool = flax.struct.field(pytree_node=False, default=False)
+    n_area: int = struct.field(pytree_node=False, default=0)
+    n_point: int = struct.field(pytree_node=False, default=0)
+    has_env: bool = struct.field(pytree_node=False, default=False)
 
     @property
     def n_lights(self) -> int:
         return self.n_area + self.n_point + (1 if self.has_env else 0)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Camera:
     to_world: jnp.ndarray  # [4, 4]
     tan_fov_x: jnp.ndarray  # [] tan(fov_x / 2)
     tan_fov_y: jnp.ndarray
     near: jnp.ndarray
     far: jnp.ndarray
-    width: int = flax.struct.field(pytree_node=False, default=256)
-    height: int = flax.struct.field(pytree_node=False, default=256)
-    filter_type: int = flax.struct.field(pytree_node=False, default=FILTER_BOX)
-    filter_radius: float = flax.struct.field(pytree_node=False, default=0.5)
-    spp: int = flax.struct.field(pytree_node=False, default=16)
+    width: int = struct.field(pytree_node=False, default=256)
+    height: int = struct.field(pytree_node=False, default=256)
+    filter_type: int = struct.field(pytree_node=False, default=FILTER_BOX)
+    filter_radius: float = struct.field(pytree_node=False, default=0.5)
+    spp: int = struct.field(pytree_node=False, default=16)
     # hdrfilm pixel_format ("rgb" | "luminance" — the reference's US film
     # XMLs request luminance, /root/reference/USMain.py:62); develop-time
     # conversion, see integrator.render.
-    pixel_format: str = flax.struct.field(pytree_node=False, default="rgb")
+    pixel_format: str = struct.field(pytree_node=False, default="rgb")
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class UltrasoundConfig:
     """Transducer + acquisition configuration.
 
@@ -207,22 +200,22 @@ class UltrasoundConfig:
     radius: jnp.ndarray  # inf => linear array
     directivity: jnp.ndarray  # 1.0
 
-    max_depth: int = flax.struct.field(pytree_node=False, default=2)
-    wave_cycles: int = flax.struct.field(pytree_node=False, default=5)
-    n_elements: int = flax.struct.field(pytree_node=False, default=128)
-    time_samples: int = flax.struct.field(pytree_node=False, default=3000)
-    n_angles: int = flax.struct.field(pytree_node=False, default=25)
-    num_elements_lateral: int = flax.struct.field(pytree_node=False, default=128)
+    max_depth: int = struct.field(pytree_node=False, default=2)
+    wave_cycles: int = struct.field(pytree_node=False, default=5)
+    n_elements: int = struct.field(pytree_node=False, default=128)
+    time_samples: int = struct.field(pytree_node=False, default=3000)
+    n_angles: int = struct.field(pytree_node=False, default=25)
+    num_elements_lateral: int = struct.field(pytree_node=False, default=128)
     # Emitter props (CustomEmmitter.py:10-22)
-    number_of_rays_per_element: int = flax.struct.field(pytree_node=False, default=1)
-    opening_angle: float = flax.struct.field(pytree_node=False, default=0.0)
-    steering_angle_min: float = flax.struct.field(pytree_node=False, default=-10.0)
-    steering_angle_max: float = flax.struct.field(pytree_node=False, default=10.0)
+    number_of_rays_per_element: int = struct.field(pytree_node=False, default=1)
+    opening_angle: float = struct.field(pytree_node=False, default=0.0)
+    steering_angle_min: float = struct.field(pytree_node=False, default=-10.0)
+    steering_angle_max: float = struct.field(pytree_node=False, default=10.0)
     # Hard path-length cutoff (CustomIntegrator.py:141: geo_len < 0.2)
-    max_path_length: float = flax.struct.field(pytree_node=False, default=0.2)
+    max_path_length: float = struct.field(pytree_node=False, default=0.2)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Scene:
     geometry: Geometry
     emitters: Emitters
@@ -251,14 +244,14 @@ class Scene:
 
     # Static set of BSDF type codes present — lets the SoA dispatch skip
     # absent lobes at trace time (bsdf/eval.py ``present`` argument).
-    bsdf_types_present: tuple = flax.struct.field(pytree_node=False, default=())
+    bsdf_types_present: tuple = struct.field(pytree_node=False, default=())
     # Static flag: any bitmap texture present (gates the per-lane texture
-    # overlay at trace time AND the Pallas megakernel scope check).
-    has_textures: bool = flax.struct.field(pytree_node=False, default=False)
-    integrator: int = flax.struct.field(pytree_node=False, default=INTEGRATOR_PATH)
-    max_depth: int = flax.struct.field(pytree_node=False, default=-1)
-    rr_depth: int = flax.struct.field(pytree_node=False, default=5)
-    hide_emitters: bool = flax.struct.field(pytree_node=False, default=False)
-    n_shapes: int = flax.struct.field(pytree_node=False, default=0)
+    # overlay at trace time).
+    has_textures: bool = struct.field(pytree_node=False, default=False)
+    integrator: int = struct.field(pytree_node=False, default=INTEGRATOR_PATH)
+    max_depth: int = struct.field(pytree_node=False, default=-1)
+    rr_depth: int = struct.field(pytree_node=False, default=5)
+    hide_emitters: bool = struct.field(pytree_node=False, default=False)
+    n_shapes: int = struct.field(pytree_node=False, default=0)
     # Original id -> index maps for mi.traverse()-style parameter access.
-    ids: Any = flax.struct.field(pytree_node=False, default=None)
+    ids: Any = struct.field(pytree_node=False, default=None)

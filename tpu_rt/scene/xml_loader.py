@@ -1,6 +1,6 @@
 """Mitsuba XML scene parser -> plugin-description dict.
 
-TPU-native replacement for Mitsuba's pugixml scene loader (SURVEY.md §2b):
+JAX replacement for Mitsuba's pugixml scene loader (SURVEY.md §2b):
 handles scene versions 2.0.0 / 2.1.0 / 3.0.0 as exercised by the reference
 scenes, ``<default name=.. value=..>`` declarations with ``$var``
 substitution and command-line-style overrides

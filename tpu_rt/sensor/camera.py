@@ -1,4 +1,4 @@
-"""Perspective camera ray generation (TPU equivalent of Mitsuba's
+"""Perspective camera ray generation (JAX equivalent of Mitsuba's
 perspective sensor used by the optical scenes, cf. scenes/cbox.xml:11-32).
 
 Convention checks (tests/test_render_optical.py): with Mitsuba's look_at

@@ -1,10 +1,10 @@
 """Film accumulation with reconstruction filters (box / tent / gaussian).
 
-TPU-native replacement for Mitsuba's hdrfilm + rfilter splatting
+JAX replacement for Mitsuba's hdrfilm + rfilter splatting
 (scenes/cbox.xml:25-31 tent, simple.xml box, cbox_pol.xml gaussian —
 SURVEY.md §2b sensor/film row).  Samples scatter-add into (H, W, C) value
 and weight planes; ``develop`` normalizes.  Scatter-add is XLA's native
-associative accumulation — race-free by construction on TPU.
+associative accumulation (on the GPU its order may vary between runs).
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ def splat_aligned(film_vals, film_wts, jitter, values, active, filter_type: int)
     sample per pixel at pixel + jitter, jitter in [0,1)^2).
 
     Each footprint cell (dx, dy) becomes a DENSE shifted add of the whole
-    sample image — TPU-friendly (no scatter serialization).  Numerically
+    sample image, with no scatter.  Numerically
     identical to ``splat`` for film_xy = grid + jitter.
 
     Args:
@@ -81,12 +81,13 @@ def splat_aligned(film_vals, film_wts, jitter, values, active, filter_type: int)
     # Footprint offsets relative to the sample's own pixel: with jitter in
     # [0,1) a radius-r filter can touch cells -r .. +r (one of the edge
     # cells gets zero weight for any given jitter — the dense form
-    # evaluates it anyway, which is still far cheaper than a scatter).
+    # evaluates it anyway).
     #
     # GATHER form: output pixel o sums over its k*k neighbor samples
     # (pad once, k*k static slice-reads) instead of k*k read-modify-write
     # .at[].add passes over the accumulator — everything fuses into one
-    # elementwise sweep (measured 0.47 ms -> sub-0.1 ms per 512^2 pass).
+    # elementwise sweep.  Whether it beats ``splat`` on the GPU is not
+    # measured yet (ROADMAP S6).
     vals = jnp.where(active[..., None], values, 0.0)
     if r == 0:
         return film_vals + vals, film_wts + active.astype(film_wts.dtype)

@@ -1,6 +1,6 @@
 """Transducer array geometry + ray generation (emitter/sensor pair).
 
-TPU-native rebuild of the reference's CustomEmitter
+JAX rebuild of the reference's CustomEmitter
 (/root/reference/CustomEmmitter.py:5-128) and UltraSensor (pyc-only class
 registered at USMain.py:17; SURVEY.md §2a#5): linear or convex element
 arrays, plane-wave steering with per-element delays t = -x sin(psi) / c,

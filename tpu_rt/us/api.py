@@ -68,7 +68,7 @@ class DelayAndSum:
     """ultraspy.beamformers.das.DelayAndSum equivalent (USMain.py:175-207).
 
     ``on_gpu`` is accepted for API compatibility; compute always runs on the
-    JAX default backend (TPU when available).
+    JAX default backend (the GPU when available).
     """
 
     def __init__(self, on_gpu=False):

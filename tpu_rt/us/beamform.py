@@ -1,6 +1,6 @@
 """Plane-wave delay-and-sum beamforming, envelope detection, B-mode.
 
-TPU-native replacement for the ultraspy pipeline the reference drives at
+JAX replacement for the ultraspy pipeline the reference drives at
 /root/reference/USMain.py:126-219 (build_probe / DelayAndSum / GridScan /
 compute_envelope) — SURVEY.md §2b DAS row.  The hot loop is a pure gather +
 reduction over (angles x elements), jit-compiled; envelope detection is a
@@ -21,14 +21,18 @@ import numpy as np
 
 
 def grid_scan(x_min, x_max, z_min, z_max, step_lateral, step_axial):
-    """Pixel grid equivalent of ultraspy GridScan (USMain.py:193-204)."""
+    """Pixel grid equivalent of ultraspy GridScan (USMain.py:193-204).
+
+    Returns host numpy float32 arrays, so the grid stays concrete when this
+    is called inside ``jax.jit`` (das_beamform_matmul sizes its RF window
+    from it on the host)."""
     x = np.arange(x_min, x_max + step_lateral, step_lateral, dtype=np.float32)
     z = np.arange(z_min, z_max + step_axial, step_axial, dtype=np.float32)
     if x.size == 0:
         x = np.asarray([x_min], np.float32)
     if z.size == 0:
         z = np.asarray([z_min], np.float32)
-    return jnp.asarray(x), jnp.asarray(z)
+    return x, z
 
 
 def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
@@ -63,7 +67,7 @@ def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
     inv_c = 1.0 / c
 
     # Chunk elements so each step is a wide (P, CHUNK) gather instead of a
-    # long sequential per-element scan (TPU wants few, fat steps).
+    # long sequential per-element scan.
     E_CHUNK = min(16, E)
     pad_e = (-E) % E_CHUNK
     rf_all = channel_data
@@ -146,32 +150,27 @@ def das_beamform_matmul(channel_data, angles_deg, elem_x, fs, c, x_grid,
                         z_grid, t_offset=0.0, block=None, window=128,
                         elem_z=None, tx=8, tz=8,
                         precision=jax.lax.Precision.HIGHEST):
-    """MXU-formulated DAS: random time-gathers (slow on TPU) become dense
+    """Matmul-formulated DAS: random time-gathers become dense
     interpolation-weight contractions over per-block RF windows.
 
     Pixels are tiled into (tx, tz) blocks; within a block the delay
     spread is bounded, so each (angle, element, block) touches one
     contiguous RF window.  The 2-tap linear interp becomes a hat-function
     weight matrix (block, window) contracted with the window, and the
-    per-pixel cost is O(window) VPU ops — the window size is the lever.
+    per-pixel cost is O(window) elementwise ops — the window size is the
+    lever.
 
     Window fetch: block window starts are quantized to Q=64-sample chunks
     and ALL block windows for one (angle, element) are fetched with a
     single one-hot GEMM  [n_blk, n_chunks] @ [n_chunks, window]  against a
-    strided-overlap view of the RF trace.  That GEMM is real MXU work
-    (K=n_chunks, N=window), replacing the per-block ``dynamic_slice``
-    whose per-block overhead used to force LARGE tiles (64x64, window
-    768): the r3 sweep measured 8x8 at 2810 ms purely from 3.3M vmapped
-    dynamic_slices.  With GEMM windows, small tiles win because the
-    per-pixel hat build shrinks with the tile's delay spread: the default
-    8x8 tile measures **113 ms** on the USMain 663k-pixel grid (8x4
-    112.9 ms, 4x4 121 ms, old 64x64 default 309 ms, gather form 4718 ms —
-    tools/diag_das.py median-of-5, v5e, HIGHEST-precision window fetch,
-    outputs equal to the gather form at ~1e-7 rel).  Falls back
-    assertion-free: windows are clamped into
-    range and out-of-range pixels contribute 0.  The window auto-sizes
-    from the grid pitch to cover the tile's full delay spread; see the
-    sizing note below for why that must happen in host numpy.
+    strided-overlap view of the RF trace, instead of one ``dynamic_slice``
+    per block.  Small tiles keep the per-pixel hat build short because it
+    shrinks with the tile's delay spread.  Both einsums run at
+    ``Precision.HIGHEST`` by default, so the result equals the gather form
+    (``das_beamform``) to f32 rounding.  Out-of-range windows are clamped
+    and out-of-range pixels contribute 0.  The window auto-sizes from the
+    grid pitch to cover the tile's full delay spread; see the sizing note
+    below for why that must happen in host numpy.
     """
     channel_data = jnp.asarray(channel_data)
     elem_x = jnp.asarray(elem_x)
@@ -200,12 +199,13 @@ def das_beamform_matmul(channel_data, angles_deg, elem_x, fs, c, x_grid,
     # np.asarray on a concrete jax array works even while tracing; only
     # genuinely traced grids (passed as jit arguments) fall back to the
     # caller-provided window.
-    if not isinstance(x_grid, jax.core.Tracer) and not isinstance(
-            z_grid, jax.core.Tracer):
+    # The same holds for a concrete jax-array c or fs: arithmetic on it
+    # inside a trace is staged, so it is read with float() first.
+    if not any(isinstance(v, jax.core.Tracer) for v in (x_grid, z_grid, c, fs)):
         xs, zs = np.asarray(x_grid), np.asarray(z_grid)
         dx = float(xs[1] - xs[0]) if Nx > 1 else 0.0
         dz = float(zs[1] - zs[0]) if Nz > 1 else 0.0
-        spread = (2.0 * TZ * abs(dz) + 2.0 * TX * abs(dx)) / c * fs
+        spread = (2.0 * TZ * abs(dz) + 2.0 * TX * abs(dx)) / float(c) * float(fs)
         needed = int(np.ceil(spread)) + 8
         window = max(window, ((needed + 127) // 128) * 128)
     # Quantized window starts: Q must divide the window so the
@@ -214,8 +214,8 @@ def das_beamform_matmul(channel_data, angles_deg, elem_x, fs, c, x_grid,
     # The one-hot chunk selector can put the window start up to Q-1
     # samples below the block's tightest start — widen the window by one
     # chunk to keep every previously-valid tap in range (Q-multiple, not
-    # 128: the hat build is O(P * window) VPU work and the extra 64 taps
-    # of a 128-rounding would cost ~25% at the default tile size).
+    # 128: the hat build is O(P * window) elementwise work, so extra taps
+    # cost time in proportion).
     window = ((window + Q + Q - 1) // Q) * Q
     n_chunks = (max(T - 1, 0) // Q) + 1  # rows cover every start s <= T-1
     L = (n_chunks - 1) * Q + window
@@ -273,10 +273,10 @@ def das_beamform_matmul(channel_data, angles_deg, elem_x, fs, c, x_grid,
                 axis=1)  # [n_chunks, window]
             onehot = (sq[:, None] ==
                       jnp.arange(n_chunks)[None, :]).astype(jnp.float32)
-            # Exact selection (0/1 weights): one MXU GEMM fetches every
+            # Exact selection (0/1 weights): one GEMM fetches every
             # block's window at once.  Precision is pinned to HIGHEST
-            # regardless of the caller's choice: anything lower quantizes
-            # the RF trace itself to bf16 on the MXU, breaking the "exact
+            # regardless of the caller's choice: anything lower (TF32 or
+            # bf16 passes) rounds the RF trace itself, breaking the "exact
             # selection" invariant (the caller's precision only governs the
             # hat-weight contraction below, where it is a genuine
             # accuracy/speed trade).
@@ -337,7 +337,7 @@ def bmode_pipeline(channel_data, angles_deg, elem_x, fs, c,
     """channel data -> beamform -> envelope (axial) -> log compression.
     Returns display image [Nz, Nx] (depth down, like USMain.py:224).
 
-    ``method``: 'matmul' (MXU windowed-interpolation DAS, default) or
+    ``method``: 'matmul' (windowed-interpolation GEMM DAS, default) or
     'gather' (reference formulation; used for cross-checks)."""
     das = das_beamform_matmul if method == "matmul" else das_beamform
     bf = das(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
